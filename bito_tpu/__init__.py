@@ -1,4 +1,4 @@
-"""bito_tpu: a TPU-native phylogenetic likelihood + variational-inference
+"""bito_tpu: a JAX phylogenetic likelihood + variational-inference
 framework with the capabilities of phylovi/bito.
 
 Public surface mirrors the reference pybind module `bito`
@@ -37,23 +37,20 @@ def _default_compilation_cache():
     """Persistent XLA compilation cache, on by default (the NNI search and
     GP workflows recompile per DAG-growth epoch; a warm cache turns
     multi-second epoch compiles into millisecond lookups across runs).
-    A user-set JAX_COMPILATION_CACHE_DIR or explicit jax config wins."""
+    A set JAX_COMPILATION_CACHE_DIR (or jax config value) wins; otherwise
+    the cache lives at the fixed path `.jax_cache` beside the package, so
+    every process of one checkout finds the same entries."""
     if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    if _os.environ.get("BITO_TPU_NO_COMPILE_CACHE"):
-        return
-    try:
-        import jax
+    import jax
 
-        if jax.config.jax_compilation_cache_dir:
-            return
-        cache = _os.path.join(
-            _os.path.expanduser("~"), ".cache", "bito_tpu", "xla")
-        _os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    if jax.config.jax_compilation_cache_dir:
+        return
+    cache = _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", cache)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 _default_compilation_cache()

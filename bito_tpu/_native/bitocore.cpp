@@ -1,6 +1,6 @@
 // bitocore: native host-side kernels for bito_tpu.
 //
-// TPU-native rebuild of the reference's flex/bison Newick parser
+// Native rebuild of the reference's flex/bison Newick parser
 // (reference: src/parser.yy, src/scanner.ll, src/driver.cpp:1-227) and the
 // UnrootedPCSPPreorder counter machinery (src/sbn_maps.cpp:120-192,
 // src/node.cpp:306-352).  These are the host-side throughput hot spots when

@@ -1,9 +1,9 @@
 """GPInstance facade mirroring bito.gp_instance.
 
-TPU-native rebuild of the reference GPInstance
+JAX rebuild of the reference GPInstance
 (reference: src/gp_instance.cpp:119-908, bound in src/pybito.cpp:700-990).
 The mmap-file constructor argument is accepted and ignored: PLVs live in
-device memory (HBM on TPU), not on disk.
+device memory, not on disk.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Bitsets for clades, subsplits, and PCSPs.
 
-TPU-native rebuild of the reference Bitset (reference: src/bitset.hpp:1-588,
+JAX rebuild of the reference Bitset (reference: src/bitset.hpp:1-588,
 src/bitset.cpp). Unlike the reference's dynamic bit-vector class, we represent a
 bitset as an immutable Python int (arbitrary precision) plus an explicit bit
 count.  Bit i of the integer corresponds to position i of the reference's

@@ -1,6 +1,6 @@
 """Newick / Nexus tree parsing and FASTA reading.
 
-TPU-native rebuild of the reference Driver + flex/bison parser
+JAX rebuild of the reference Driver + flex/bison parser
 (reference: src/driver.cpp:1-227, src/parser.yy, src/scanner.ll) and
 Alignment::ReadFasta (src/alignment.cpp).  A recursive-descent parser replaces
 the generated LALR parser; semantics reproduced:

@@ -1,6 +1,6 @@
 """Site-pattern compression and tip partials.
 
-TPU-native rebuild of the reference SitePattern
+JAX rebuild of the reference SitePattern
 (reference: src/site_pattern.cpp:15-120).  An alignment is compressed into
 unique site-pattern columns with multiplicity weights; tips get one-hot
 partials for A/C/G/T and all-ones for gaps/ambiguous codes (symbol 4), exactly

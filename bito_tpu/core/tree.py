@@ -1,6 +1,6 @@
 """Host-side tree structures (array-backed).
 
-TPU-native rebuild of the reference Node/Tree/TreeCollection
+JAX rebuild of the reference Node/Tree/TreeCollection
 (reference: src/node.hpp:3-30, src/tree.hpp:12-35,
 src/generic_tree_collection.hpp).  Where the reference keeps a shared_ptr
 object graph per tree, we keep one flat parent-index array per topology:

@@ -1,6 +1,6 @@
 """GraftDAG: a host DAG extended with proposed NNI node pairs.
 
-TPU-native rebuild of the reference GraftDAG (reference:
+JAX rebuild of the reference GraftDAG (reference:
 src/graft_dag.hpp:3-60): proposed parent/child subsplit pairs are layered
 onto a host DAG so NNI candidates can be scored before committing.  Where
 the reference grafts in place (append-only storage, no reindexing) and

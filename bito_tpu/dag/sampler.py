@@ -1,6 +1,6 @@
 """Sampling a single topology from a subsplit DAG.
 
-TPU-native rebuild of the reference TopologySampler
+JAX rebuild of the reference TopologySampler
 (reference: src/topology_sampler.{hpp,cpp}): starting from any DAG node,
 walk rootward choosing parents with probabilities proportional to the
 inverted (Bayes-rule rootward) edge probabilities, and leafward choosing

@@ -1,6 +1,6 @@
 """The subsplit DAG (host-side structure).
 
-TPU-native rebuild of the reference SubsplitDAG
+JAX rebuild of the reference SubsplitDAG
 (reference: src/subsplit_dag.cpp:15-1060, src/subsplit_dag.hpp:512-565,
 src/subsplit_dag_storage.hpp).  Nodes are subsplits (leaf subsplits with ids
 0..n-1, internal subsplits topologically ordered so children precede parents,

@@ -8,9 +8,8 @@ p-hat PLV coming up into it; the tidy depth-first traversal interleaves
 branch-length optimization only recomputes invalidated PLVs.
 
 Status in this framework: the wavefront GP engine recomputes whole
-levels per sweep — measured faster on TPU than fine-grained invalidation
-(IMPLEMENTATION_NOTES L5, a round-2 measured decision that rounds 3-4
-re-affirmed) — so this structure is NOT on the product hot path.  It is
+levels per sweep rather than invalidating fine-grained PLVs
+(IMPLEMENTATION_NOTES L5) — so this structure is NOT on the product hot path.  It is
 provided as the complete, tested equivalent of the reference component
 (the last row of the SURVEY §2 inventory): host-side analysis, traversal
 scheduling experiments, and parity against the reference's slicing

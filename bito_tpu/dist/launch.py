@@ -9,17 +9,19 @@ virtual CPU devices per process (XLA_FLAGS host platform device count).
 Exit status is nonzero if any worker fails; worker output is streamed with
 a `[p<i>]` prefix.
 
-Failure diagnosis (a wedged distributed job must die fast and say why —
-the round-3 CI failure mode was a silent 600 s timeout under CPU
-contention): every output line from any worker counts as a heartbeat; if
-NO worker produces output for --stall-timeout seconds (default 120), or
-the whole job exceeds --hard-timeout (default none), the launcher kills
-the exact worker processes it spawned and exits nonzero with each
-worker's last output lines, so the stalled rank is attributable.
+Failure diagnosis (a wedged distributed job must die fast and say why):
+every output line from any worker counts as a heartbeat; if NO worker
+produces output for --stall-timeout seconds (default 120), or the whole
+job exceeds --hard-timeout (default none), the launcher kills the exact
+worker processes it spawned and exits nonzero with each worker's last
+output lines, so the stalled rank is attributable.
 
-On real multi-host TPU pods, do NOT use this launcher — start one process
-per host through your cluster scheduler and pass --coordinator/--num-hosts/
---host-id (or the BITO_* env vars) yourself; see dist/multihost.py.
+This is an emulator only: it always forces JAX_PLATFORMS=cpu.  On a GPU
+host, one process drives all of the host's cards through one mesh
+(`make_mesh`, then `engine.shard_patterns(mesh)`), so nothing spawns a
+process per card.  A real multi-host job starts one process per host
+through its cluster scheduler and passes --coordinator/--num-hosts/
+--host-id (or the BITO_* env vars) itself; see dist/multihost.py.
 """
 from __future__ import annotations
 

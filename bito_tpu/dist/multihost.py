@@ -23,7 +23,7 @@ Launch recipe (2 hosts):
 with train.py calling multihost.initialize(...) before any jax use, then
 multihost.global_mesh() and engine.shard_patterns(mesh).
 
-CPU emulation for tests/CI (no TPUs needed):
+CPU emulation for tests/CI (no accelerator needed):
     python -m bito_tpu.dist.launch -n 2 --devices-per-process 2 script.py
 runs `script.py` in 2 local processes with a shared coordinator; the
 global mesh then has 4 virtual devices across 2 "hosts".

@@ -1,6 +1,6 @@
 """Vectorized 1-D optimizers for batched branch-length optimization.
 
-TPU-native rebuild of the reference Optimization namespace
+JAX rebuild of the reference Optimization namespace
 (reference: src/optimization.hpp:13-402): BrentMinimize (the Boost-adapted
 variant with a caller-supplied initial guess), BrentMinimizeWithGradients
 (gradient-step fallback when the trial point fails to improve),
@@ -34,9 +34,7 @@ import numpy as np
 # float32 of the reference's "golden ratio, don't need too much precision
 # here!" constant (src/optimization.hpp:208): 2 - phi rounded to f32.
 # float32 of the reference's 0.3819660f; computed via numpy so
-# importing the package never touches a device (a module-level
-# jnp constant hung/failed every import while the TPU claim was
-# pending).
+# importing the package never touches a device.
 GOLDEN = float(np.float32(0.3819660))
 
 SIGNIFICANT_DIGITS = 10       # src/dag_branch_handler.hpp:288

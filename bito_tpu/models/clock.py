@@ -1,6 +1,6 @@
 """Clock models: none, strict.
 
-TPU-native rebuild of the reference ClockModel (reference:
+JAX rebuild of the reference ClockModel (reference:
 src/clock_model.hpp:23-46).  "none" fixes the rate at 1 (unrooted/classical
 likelihoods); "strict" applies one global rate to all branches of a rooted
 time tree.

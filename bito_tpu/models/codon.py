@@ -1,15 +1,14 @@
 """Codon-state substitution models (the north star's "codon-sized matrix
 exponentials"): MG94-style 61-state models evaluated on the SAME batched
 scan tape as the 4-state models, padded to A=64 so every per-state
-dimension tiles the TPU lane/sublane grid.
+dimension is a power of two.
 
 The reference's engine is hard-wired to BEAGLE's 4-state kernels for its
 shipped models (src/fat_beagle.cpp); here the pruning tape
 (treelike/pruning.py) is state-generic — A flows from the tip-partial and
 eigenvector shapes — so codon support is a model, not an engine fork.
-At A=64 the per-op evolve is a [64C, 64C]-block against [64C, S]: the
-MXU-bound regime where the TPU's systolic array does the work, unlike the
-latency-bound 4-state case.
+At A=64 the per-op evolve is a [64C, 64C]-block against [64C, S]: a real
+matrix product, unlike the 4x4 blocks of the 4-state case.
 
 Padding contract (states 61..63):
   - pi is zero on pad states, so the root contraction ignores them;
@@ -308,7 +307,7 @@ def codon_ll_and_gradients(topologies, branch_lengths, tip_partials,
                            category_proportions=None):
     """Batched codon (LL, linear-time branch gradients) on the standard
     scan tape — the A=64 evolves are [64C, 64C] blocks against [64C, S],
-    the MXU-bound regime the 4-state case never reaches."""
+    real matrix products where the 4-state case has 4x4 ones."""
     import jax.numpy as jnp
 
     from ..treelike import pruning

@@ -1,7 +1,7 @@
 """PhyloModel: bundle of substitution + site + clock models with a
 block-specified flat parameter vector.
 
-TPU-native rebuild of the reference PhyloModel / BlockSpecification
+JAX rebuild of the reference PhyloModel / BlockSpecification
 (reference: src/phylo_model.hpp:13-63, src/block_specification.hpp:17-74).
 Parameters live in a flat per-tree vector carved into named segments; the
 block map keys match the reference's Python-exposed names

@@ -1,6 +1,6 @@
 """Across-site rate-variation models: constant, Weibull+K, Gamma+K.
 
-TPU-native rebuild of the reference SiteModel (reference:
+JAX rebuild of the reference SiteModel (reference:
 src/site_model.cpp:10-78, src/site_model.hpp:27-79).  The Weibull model uses
 the reference's median discretization (inverse CDF at (2i+1)/2K quantiles,
 scale fixed so rates are mean-normalized); its rate gradient falls out of JAX

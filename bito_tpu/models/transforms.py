@@ -1,6 +1,6 @@
 """Simplex (stick-breaking) transform, Stan convention.
 
-TPU-native rebuild of the reference StickBreakingTransform
+JAX rebuild of the reference StickBreakingTransform
 (reference: src/stick_breaking_transform.cpp:20-57, following
 mc-stan.org/docs simplex-transform).  Pure JAX and differentiable, so the
 substitution-model gradients that the reference obtains by central finite

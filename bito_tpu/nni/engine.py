@@ -1,6 +1,6 @@
 """NNI systematic search over the subsplit DAG.
 
-TPU-native rebuild of the reference NNIEngine
+JAX rebuild of the reference NNIEngine
 (reference: src/nni_engine.cpp:197-330, src/nni_operation.hpp:25-90).
 The loop {enumerate adjacent NNIs -> score candidates -> filter ->
 add accepted to DAG -> update sets} is preserved; candidate scoring runs as

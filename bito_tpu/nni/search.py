@@ -1,6 +1,6 @@
 """NNI systematic-search harness with posterior-recovery tracking.
 
-The TPU-native counterpart of the reference's search driver
+The JAX counterpart of the reference's search driver
 (reference: test/nni_search.py — Loader, PosteriorProbabilityMaps,
 Results, Program.nni_search, lines 185-1290): load a seed DAG and a
 credible posterior (trees + per-tree and per-PCSP posterior weights from

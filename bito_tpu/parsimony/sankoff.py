@@ -1,6 +1,6 @@
 """Sankoff (weighted) parsimony, batched over trees and site patterns.
 
-TPU-native rebuild of the reference SankoffHandler / SankoffMatrix
+JAX rebuild of the reference SankoffHandler / SankoffMatrix
 (reference: src/sankoff_handler.hpp:25-130, src/sankoff_matrix.hpp:4-6).
 The per-node P-left/P-right/Q partial vectors become one min-plus DP over
 the same padded op tape used for likelihood pruning (treelike/encode.py), so

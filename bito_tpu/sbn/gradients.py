@@ -1,7 +1,7 @@
 """SBN topology gradients: GradientOfLogQ, ELBO and VIMCO multiplicative
 factors.
 
-TPU-native rebuild of the reference gradient machinery
+JAX rebuild of the reference gradient machinery
 (reference: src/unrooted_sbn_instance.cpp:170-240 GradientOfLogQ +
 TopologyGradients; src/generic_sbn_instance.hpp:464-497 multiplicative /
 VIMCO factors).  The lazily-filled normalized-parameter cache becomes an

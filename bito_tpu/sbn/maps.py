@@ -1,6 +1,6 @@
 """SBN maps: rootsplit/PCSP counters and indexer representations.
 
-TPU-native rebuild of the reference SBNMaps (reference:
+JAX rebuild of the reference SBNMaps (reference:
 src/sbn_maps.cpp:13-320, src/sbn_maps.hpp:74-82).  The reference walks
 shared-pointer node graphs with the intricate UnrootedPCSPPreorder traversal
 (src/node.cpp:306-352); here every virtual rooting is handled by O(1) clade

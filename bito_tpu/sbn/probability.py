@@ -1,7 +1,7 @@
 """SBN probability: SimpleAverage and ExpectationMaximization training,
 topology probabilities, and segment-normalization utilities.
 
-TPU-native rebuild of the reference SBNProbability
+JAX rebuild of the reference SBNProbability
 (reference: src/sbn_probability.cpp:140-392, src/sbn_probability.hpp:15-66).
 Representations are packed into padded index matrices so the EM loop is
 vectorized numpy (log-space scatter-adds) instead of the reference's nested

@@ -1,6 +1,6 @@
 """Primary Subsplit Pair (PSP) branch-length parameterization indexer.
 
-TPU-native rebuild of the reference PSPIndexer
+JAX rebuild of the reference PSPIndexer
 (reference: src/psp_indexer.cpp:10-105, src/psp_indexer.hpp:25-60).
 Per branch, the representation is the triple
   (rootsplit index, subsplit-down index, subsplit-up index)

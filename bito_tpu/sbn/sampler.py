@@ -1,6 +1,6 @@
 """Topology sampling from an SBN (rootsplit, then recursive subsplits).
 
-TPU-native rebuild of reference GenericSBNInstance::SampleTopology
+JAX rebuild of reference GenericSBNInstance::SampleTopology
 (reference: src/generic_sbn_instance.hpp:393-432).  Sampling is host-side
 (the trees are handed to the device engines as index tapes), driven by a
 numpy Generator for reproducibility.

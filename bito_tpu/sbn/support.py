@@ -1,6 +1,6 @@
 """SBN support: the indexed set of allowed rootsplits + PCSPs.
 
-TPU-native rebuild of the reference SBNSupport / BuildIndexerBundle
+JAX rebuild of the reference SBNSupport / BuildIndexerBundle
 (reference: src/sbn_support.hpp:4-60, src/sbn_maps.cpp:88-118).  Layout
 invariants preserved:
   - indices 0..R-1 are the rootsplits (as UCA->rootsplit PCSPs),

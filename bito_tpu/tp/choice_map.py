@@ -1,6 +1,6 @@
 """TP choice maps: per-edge best adjacent edges and top-tree extraction.
 
-TPU-native rebuild of the reference TPChoiceMap
+JAX rebuild of the reference TPChoiceMap
 (reference: src/tp_choice_map.hpp:4-8, src/tp_choice_map.cpp): for every DAG
 edge, the choice map records the adjacent edges (parent, sister, left child,
 right child) of the best ("top") tree containing that edge, plus which input

@@ -1,6 +1,6 @@
 """TP engine: top-pruning scores over the subsplit DAG.
 
-TPU-native rebuild of the reference TPEngine / TPEvalEngine
+JAX rebuild of the reference TPEngine / TPEvalEngine
 (reference: src/tp_engine.cpp:421-1460, src/tp_evaluation_engine.hpp:4-12).
 Every DAG edge is scored by its best ("top") tree containing that edge.
 

@@ -3,7 +3,7 @@
 This replaces the reference's per-tree BeagleOperation lists
 (reference: src/fat_beagle.cpp:49-69, 113-169) with padded integer tensors
 that a single jitted XLA program consumes for a whole batch of trees at once
-(the TPU-native successor of FatBeagleParallelize's thread pool,
+(the JAX successor of FatBeagleParallelize's thread pool,
 src/fat_beagle.hpp:151-184).
 
 Encoding (per tree, padded across the batch):
@@ -17,7 +17,7 @@ Encoding (per tree, padded across the batch):
       outside[dest] = upper[parent] * (P[edge1] @ partials[sib1])
                                     * (P[edge2] @ partials[sib2])
       upper[dest]   = P[dest_edge]^T @ outside[dest]
-    which yields linear-time branch gradients (the TPU equivalent of
+    which yields linear-time branch gradients (the batched equivalent of
     beagleUpdatePrePartials + beagleCalculateEdgeDerivatives,
     reference src/fat_beagle.cpp:113-169).
 """

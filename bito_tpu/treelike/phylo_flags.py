@@ -1,6 +1,6 @@
 """PhyloFlags: runtime option flags for likelihood/gradient calls.
 
-TPU-native rebuild of the reference PhyloFlags system
+JAX rebuild of the reference PhyloFlags system
 (reference: src/phylo_flags.hpp:4-356, exported names
 src/pybito.cpp:1269-1287).  Flags select which gradients are computed and
 whether the height-transform log-det-Jacobian is included; they can be

@@ -1,13 +1,14 @@
 """Batched Felsenstein pruning and linear-time branch gradients (JAX).
 
-The TPU-native replacement of the reference Engine/FatBeagle/BEAGLE stack
+The JAX replacement of the reference Engine/FatBeagle/BEAGLE stack
 (reference: src/engine.cpp:27-119, src/fat_beagle.cpp:49-169).  One jitted
 XLA program computes likelihoods (and gradients) for a whole batch of trees:
 the batch dimension replaces the reference's TaskProcessor thread pool
-(src/fat_beagle.hpp:151-184), and the site-pattern dimension is the lane axis
-(padded to 128) and the cross-device sharding axis.
+(src/fat_beagle.hpp:151-184), and the site-pattern dimension is the
+contiguous axis (padded to a multiple of 128) and the cross-device sharding
+axis.
 
-Data layout (S last so patterns ride the 128-wide lanes):
+Data layout (S last, so per-pattern work is contiguous and shardable):
   partials  [B, N+1, C, A, S]
   logscale  [B, N+1, S]        per-node accumulated log rescaling factors
   P         [B, N+1, C, A, A]  transition matrices (+ identity at index N)
@@ -30,29 +31,20 @@ from ..models.substitution import (
     transition_matrices,
 )
 
+# Every dot states its precision: on a GPU an f32 dot at DEFAULT or HIGH
+# may run as TF32, which on the H100 put the A=64 codon gradients 1e-4 off
+# f64 where HIGHEST keeps them within 2e-7.
 Precision = jax.lax.Precision.HIGHEST
-
-
-def _evolve_precision(A: int):
-    """Evolve-dot precision by state count.  At A=64 the 6-pass HIGHEST
-    evolve is pure MXU overhead on a bandwidth-bound path: HIGH (3-pass
-    bf16) measured +12% codon throughput at 7.2e-6 parity vs HIGHEST on
-    v5e (round 5) — the contractions are sums of positives, so the
-    3-pass split's dropped lo*lo term stays relative.  A=4 keeps
-    HIGHEST (cheap there, and the Pallas parity baselines pin it)."""
-    return jax.lax.Precision.HIGH if A >= 64 else Precision
 
 
 def _evolve(P_row, p_row):
     """[C,A,A] @ [C,A,S] -> [C,A,S]."""
-    return jnp.einsum("cab,cbs->cas", P_row, p_row,
-                      precision=_evolve_precision(P_row.shape[-1]))
+    return jnp.einsum("cab,cbs->cas", P_row, p_row, precision=Precision)
 
 
 def _evolve_t(P_row, o_row):
     """transpose evolve: [C,A,A]^T @ [C,A,S] -> [C,A,S]."""
-    return jnp.einsum("cab,cas->cbs", P_row, o_row,
-                      precision=_evolve_precision(P_row.shape[-1]))
+    return jnp.einsum("cab,cas->cbs", P_row, o_row, precision=Precision)
 
 
 def transition_matrices_ext(
@@ -254,13 +246,12 @@ def preorder_gradients_fused(
     rescale: bool = True,
 ) -> jnp.ndarray:
     """Preorder pass with the per-edge gradient reduction FUSED into each
-    step: the [B, N+1, C, A, S] outside buffer never round-trips to HBM
-    and the evolved/devolved [B, N, C, A, S] intermediates of
+    step: the [B, N+1, C, A, S] outside buffer is never written to device
+    memory and the evolved/devolved [B, N, C, A, S] intermediates of
     branch_length_gradients are never materialized — each op reduces its
-    own num/den to [B, S] on the spot.  The scan path is HBM-bandwidth
-    bound at codon scale (measured ~76% of v5e peak, round 5); this
-    fusion removes ~1/3 of the bytes.  Returns grads [B, N+1] (caller
-    masks and trims)."""
+    own num/den to [B, S] on the spot, which removes about a third of the
+    bytes the unfused path moves.  Returns grads [B, N+1] (caller masks
+    and trims)."""
 
     B, N1, C, A, S = partials.shape
     upper = jnp.zeros_like(partials)
@@ -371,7 +362,7 @@ def log_likelihoods_impl(
     buf, logs = postorder_pass(post_ops, P, buf, logs, rescale=rescale)
     per_pattern = root_log_likelihood(buf, logs, root, eig.pi,
                                       category_proportions)
-    return per_pattern @ weights
+    return jnp.dot(per_pattern, weights, precision=Precision)
 
 
 @functools.partial(jax.jit, static_argnames=("num_slots", "pattern_pad",
@@ -388,8 +379,8 @@ def ll_and_branch_gradients_impl(
 
     fused=True (default) computes the per-edge gradient reductions inside
     the preorder scan (preorder_gradients_fused) — mathematically
-    identical to the materialized outside-buffer path, ~1/3 fewer HBM
-    bytes (the scan path is bandwidth-bound at codon scale, round 5)."""
+    identical to the materialized outside-buffer path, with about a third
+    fewer bytes moved."""
     B = branch_lengths.shape[0]
     P = transition_matrices_ext(eig, branch_lengths, category_rates,
                                 clock_rate, Q=Q)
@@ -400,7 +391,7 @@ def ll_and_branch_gradients_impl(
     buf, logs = postorder_pass(post_ops, P, buf, logs, rescale=rescale)
     per_pattern = root_log_likelihood(buf, logs, root, eig.pi,
                                       category_proportions)
-    ll = per_pattern @ weights
+    ll = jnp.dot(per_pattern, weights, precision=Precision)
     if fused:
         gfull = preorder_gradients_fused(
             pre_ops, P, dP, buf, root, eig.pi, category_proportions,
@@ -576,7 +567,7 @@ def log_likelihoods_leveled_impl(
                                        rescale=rescale)
     per_pattern = root_log_likelihood(buf, logs, root, eig.pi,
                                       category_proportions)
-    return per_pattern @ weights
+    return jnp.dot(per_pattern, weights, precision=Precision)
 
 
 @functools.partial(jax.jit, static_argnames=("num_slots", "pattern_pad",
@@ -597,7 +588,7 @@ def ll_and_branch_gradients_leveled_impl(
                                        rescale=rescale)
     per_pattern = root_log_likelihood(buf, logs, root, eig.pi,
                                       category_proportions)
-    ll = per_pattern @ weights
+    ll = jnp.dot(per_pattern, weights, precision=Precision)
     outside = preorder_pass_leveled(pre_levels, P, buf, root, eig.pi,
                                     rescale=rescale)
     grads = branch_length_gradients(

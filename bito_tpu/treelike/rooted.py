@@ -1,6 +1,6 @@
 """Rooted time-tree state and height/ratio gradient transforms.
 
-TPU-native rebuild of the reference RootedTree height machinery and
+JAX rebuild of the reference RootedTree height machinery and
 RootedGradientTransforms (reference: src/rooted_tree.cpp:36-130,
 src/rooted_gradient_transforms.cpp:19-256; BEAST-derived math by Xiang Ji
 and Marc Suchard).  Host-side numpy, O(n) per tree: these reparameterization

@@ -5,7 +5,7 @@ CSV/Newick round trips.  Here full state snapshots — SBN parameters, branch
 lengths, variational parameters, DAG node/edge identity (as bitset strings),
 optimizer moments — serialize as one atomic .npz file (binary numpy arrays
 + a JSON metadata tree), giving deterministic restart for long VI/NNI runs
-on preemptible TPU jobs.  Array leaves round-trip at full f64 precision
+on preemptible machines.  Array leaves round-trip at full f64 precision
 without the cost of text encoding; legacy JSON snapshots still load.
 """
 from __future__ import annotations

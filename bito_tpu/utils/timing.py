@@ -1,6 +1,6 @@
 """Stopwatch + device profiling hooks.
 
-TPU-native rebuild of the reference Stopwatch/ProgressBar instrumentation
+JAX rebuild of the reference Stopwatch/ProgressBar instrumentation
 (reference: src/stopwatch.hpp:3-12, laps used in src/nni_engine.cpp:230-257
 and src/gp_instance.cpp:303-309) plus jax.profiler trace capture for device
 timelines (SURVEY §5.1's "jax profiler traces + per-phase timers").
@@ -141,3 +141,38 @@ def block_until_ready(tree):
     import jax
 
     return jax.block_until_ready(tree)
+
+
+def time_branch_sweep(engine, trees, params, iters: int, reps: int = 5):
+    """Compile, then time, `iters` LL+gradient evaluations of a tree batch
+    run as one jitted lax.scan over scaled branch lengths — the way a VBPI
+    inner loop or a branch-length sweep embeds `branch_eval_fn`.  Each rep
+    scales the branch lengths anew, so no rep reuses a result.  Returns
+    (compile seconds, [seconds per rep], the compiled sweep)."""
+    import jax
+    import jax.numpy as jnp
+
+    base_bl = engine.branch_length_matrix(trees, engine.encode(trees))
+    eval_fn = engine.branch_eval_fn(trees, params)
+
+    def sweep(bl):
+        def body(carry, k):
+            ll, grads = eval_fn(bl * (1.0 + 0.001 * k))
+            return carry + ll.sum() + grads.sum(), None
+
+        total, _ = jax.lax.scan(body, jnp.zeros((), bl.dtype),
+                                jnp.arange(iters, dtype=bl.dtype))
+        return total
+
+    t0 = time.perf_counter()
+    compiled = jax.jit(sweep).lower(base_bl).compile()
+    compiled(base_bl).block_until_ready()
+    compile_s = time.perf_counter() - t0
+    times = []
+    for r in range(reps):
+        bl = base_bl * (1.0 + 1e-4 * (r + 1))
+        bl.block_until_ready()
+        t0 = time.perf_counter()
+        compiled(bl).block_until_ready()
+        times.append(time.perf_counter() - t0)
+    return compile_s, times, compiled

@@ -125,7 +125,7 @@ class LogNormalModel(ScalarModel):
 
 
 class JAXScalarModel(ScalarModel):
-    """Autodiff scalar model over a named JAX distribution: the TPU-native
+    """Autodiff scalar model over a named JAX distribution: the JAX
     analog of the reference's TFScalarModel (vip/scalar_model.py:188-270).
 
     Distributions are parameterized as in the reference factories:

@@ -1,5 +1,7 @@
 """Measured CPU baseline: a faithful single-thread f64 reimplementation of
-the reference's DS1 GTR+Gamma4 LL + branch-gradient path.
+the reference's DS1 GTR+Gamma4 LL + branch-gradient path.  It is also the
+plain f64 reference the GPU path is checked against (chip_smoke.py,
+tests/test_simulated.py).
 
 The reference (phylovi/bito) cannot be built here (BEAGLE is an external
 git fetch; no egress), so this script reproduces FatBeagle::Gradient's
@@ -19,7 +21,9 @@ equivalent.  The reference's Engine defaults to a thread pool over trees;
 the recorded number is single-thread (per-chip comparisons multiply by the
 host's core count if desired — the bito Engine scales linearly over trees).
 
-Writes scripts/cpu_baseline.json {"evals_per_sec": N, ...}.
+Times the DS1-shaped simulated data of bito_tpu/utils/simulate.py (27
+taxa, 1,949 sites, seed 0) and writes scripts/cpu_baseline.json
+{"evals_per_sec": N, ...}.
 
 Usage: python scripts/cpu_baseline.py [--trees N] [--reps N]
 """
@@ -34,10 +38,8 @@ from scipy.stats import gamma as gamma_dist
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bito_tpu.core.newick import parse_nexus_file, read_fasta  # noqa: E402
+from bito_tpu.core.newick import parse_nexus_file  # noqa: E402
 from bito_tpu.core.site_pattern import SitePattern  # noqa: E402
-
-DATA = "/root/reference/data"
 
 
 def gtr_eigen(rates, pi):
@@ -170,9 +172,14 @@ def main():
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
 
-    coll = parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
-    seqs = read_fasta(f"{DATA}/DS1.fasta")
-    sp = SitePattern(seqs, coll.taxon_names)
+    import tempfile
+
+    from bito_tpu.utils import simulate
+
+    sim = simulate.simulate(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        coll = parse_nexus_file(simulate.write_files(sim, tmp)["nexus"])
+    sp = SitePattern(sim.alignment, coll.taxon_names)
     tips = sp.tip_partials()          # [T, S, 4]
     weights = np.asarray(sp.weights, dtype=np.float64)
 
@@ -198,8 +205,8 @@ def main():
 
     out = {
         "evals_per_sec": round(evals_per_sec, 2),
-        "metric": "DS1 GTR+Gamma4 LL+branch-gradient evals/sec, "
-                  "single CPU thread, f64",
+        "metric": "DS1-shape GTR+Gamma4 LL+branch-gradient evals/sec, "
+                  "single CPU thread, f64 (simulated data, seed 0)",
         "method": "faithful numpy reimplementation of "
                   "FatBeagle::Gradient (src/fat_beagle.cpp:113-169)",
         "trees_timed": args.trees,

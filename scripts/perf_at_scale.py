@@ -13,13 +13,15 @@ terms the six_taxon config cannot see:
 
 Decision anchor (VERDICT task 5): if the host rebuild exceeds ~25% of a
 GP-NNI iteration at this scale, the spare-scratch graft overlay gets
-built next round.  Run alone (one TPU process at a time).
+built next round.  Needs bito's DS1 fixture files.  Run it alone: one JAX
+process per card.
 """
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 DATA = "/root/reference/data"
 

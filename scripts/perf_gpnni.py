@@ -1,15 +1,17 @@
-"""GP-scored NNI iteration budget on TPU (VERDICT round-4 task 8).
+"""GP-scored NNI iteration budget (VERDICT round-4 task 8).
 
 Runs the six_taxon GP-scored search (BENCH config5's slow half) with the
 engine's PhaseTimer hooks and prints the per-phase split: host graft
 rebuild / engine build / carry / device scoring / DAG rebuild / GP grow /
-branch-length re-estimation.  Run me alone (one TPU process at a time).
+branch-length re-estimation.  Needs bito's six_taxon fixture files.  Run
+it alone: one JAX process per card.
 """
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 DATA = "/root/reference/data"
 

@@ -9,14 +9,14 @@ inside the prefix — if some variant reproduced the golden trajectory past
 23, that variant would be the 811b735 behavior; if none do, the divergence
 boundary is certified as unexplorable without the 811b735 source.
 
-Usage: JAX x64 CPU; ~60 s per variant.
+Runs with JAX x64 enabled; needs bito's DS1 fixture files.
 """
+import os
 import sys
 
 import jax
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bito_tpu.nni.golden import golden_nni_search, load_golden_run
 

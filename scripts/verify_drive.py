@@ -6,7 +6,6 @@ batched NNI scoring pass against the serial faithful path.
 """
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

@@ -176,3 +176,29 @@ class TestGPExports:
         tree_path = str(tmp_path / "trees.nwk")
         inst.export_trees_with_gp_branch_lengths(tree_path)
         assert open(tree_path).read().count(";") == inst.tree_count()
+
+
+class TestCompileCache:
+    @pytest.mark.parametrize("env_set", [True, False])
+    def test_cache_directory_rule(self, tmp_path, env_set):
+        """A set JAX_COMPILATION_CACHE_DIR wins and the package sets no
+        other; otherwise the cache is the fixed `.jax_cache` of the
+        checkout."""
+        import subprocess
+        import sys
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo)
+        env.pop("JAX_COMPILATION_CACHE_DIR", None)
+        if env_set:
+            env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / "cache")
+        out = subprocess.run(
+            [sys.executable, "-c",
+             "import bito_tpu, jax; "
+             "print(jax.config.jax_compilation_cache_dir)"],
+            env=env, capture_output=True, text=True, timeout=120,
+            cwd=str(tmp_path))
+        assert out.returncode == 0, out.stderr
+        expected = (str(tmp_path / "cache") if env_set
+                    else os.path.join(repo, ".jax_cache"))
+        assert out.stdout.strip() == expected

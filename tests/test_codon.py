@@ -210,7 +210,6 @@ class TestCodonProductPath:
     def test_engine_scan_matches_free_function(self, data_dir):
         coll, sp, engine = self._setup(data_dir)
         params = self._params()
-        engine.kernel = "scan"
         trees = coll.trees
         for t in trees:
             t.branch_lengths[:] = np.linspace(
@@ -227,27 +226,6 @@ class TestCodonProductPath:
         ll_free = np.asarray(cd.codon_log_likelihoods(
             enc_topos, bl, sp.tip_partials(), sp.weights, model))
         np.testing.assert_allclose(ll_engine, ll_free, rtol=1e-9)
-
-    def test_engine_paired_kernel_matches_scan(self, data_dir):
-        """The paired Pallas kernel at CA=64 (interpret mode): the codon
-        MXU route through the product engine."""
-        coll, sp, engine = self._setup(data_dir)
-        params = self._params()
-        trees = coll.trees[:2] * 2  # batch 4
-        for i, t in enumerate(trees):
-            t.branch_lengths[:] = np.linspace(
-                0.05, 0.4 + 0.01 * i, t.branch_lengths.shape[0])
-        engine.kernel = "scan"
-        ll_s = np.asarray(engine.log_likelihoods(trees, params))
-        _, g_s = engine.ll_and_branch_gradients(trees, params)
-        engine.kernel = "pallas_interpret"
-        assert engine._padded_CA() == 64
-        ll_p = np.asarray(engine.log_likelihoods(trees, params))
-        _, g_p = engine.ll_and_branch_gradients(trees, params)
-        np.testing.assert_allclose(ll_p, ll_s, rtol=1e-5)
-        np.testing.assert_allclose(
-            np.asarray(g_p), np.asarray(g_s), rtol=1e-3,
-            atol=1e-4 * np.abs(np.asarray(g_s)).max())
 
     def test_mg94_traceable_eigen_matches_host(self):
         """The traceable jnp MG94 eigensystem (used when parameters are
@@ -347,10 +325,8 @@ class TestUniformizedTransitions:
         trees = coll.trees[:2]
         e32 = TreeLikelihoodEngine(sp, PhyloModel(spec),
                                    dtype=jnp.float32)
-        e32.kernel = "scan"
         ll32, g32 = e32.ll_and_branch_gradients(trees, params)
         e64 = TreeLikelihoodEngine(sp, PhyloModel(spec))
-        e64.kernel = "scan"
         ll64, g64 = e64.ll_and_branch_gradients(trees, params)
         g32, g64 = np.asarray(g32), np.asarray(g64)
         assert np.abs((np.asarray(ll32) - np.asarray(ll64))
@@ -375,7 +351,6 @@ class TestCodonProductPathExtras:
 
         spec = PhyloModelSpecification(substitution="MG94", site="gamma+4")
         engine = TreeLikelihoodEngine(sp, PhyloModel(spec))
-        engine.kernel = "scan"
         params = dict(self._params(),
                       site_model_parameters=jnp.asarray([0.6]))
         trees = coll.trees[:2]
@@ -400,11 +375,3 @@ class TestCodonProductPathExtras:
             category_proportions=props))
         np.testing.assert_allclose(ll, ll_free, rtol=1e-6)
 
-    def test_chunked_kernel_refuses_codon(self, data_dir):
-        """kernel='chunked' with a codon model raises instead of silently
-        running the eigen transition route (whose f32 cancellation made
-        codon gradients 18x wrong — round-5 finding)."""
-        coll, sp, engine = self._setup(data_dir)
-        engine.kernel = "chunked"
-        with pytest.raises(ValueError, match="4-state"):
-            engine.log_likelihoods(coll.trees[:2], self._params())

@@ -19,9 +19,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_payload(code: str) -> str:
+def run_payload(code: str, devices: int = 8) -> str:
     env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
     pp = env.get("PYTHONPATH", "")
     env["PYTHONPATH"] = REPO + (os.pathsep + pp if pp else "")
     out = subprocess.run(
@@ -37,6 +37,55 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 assert len(jax.devices()) == 8, jax.devices()
+"""
+
+SHARDED_ENGINE = """
+import tempfile
+import numpy as np
+import jax, jax.numpy as jnp
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+assert len(jax.devices()) == 4, jax.devices()
+from bito_tpu.core.newick import parse_nexus_file, read_fasta
+from bito_tpu.core.site_pattern import CodonSitePattern, SitePattern
+from bito_tpu.dist.mesh import make_mesh
+from bito_tpu.models.phylo_model import PhyloModel, PhyloModelSpecification
+from bito_tpu.treelike.engine import TreeLikelihoodEngine
+from bito_tpu.utils import simulate
+
+with tempfile.TemporaryDirectory() as tmp:
+    files = simulate.write_files(simulate.simulate(3, num_taxa=8,
+                                                   num_sites=300), tmp)
+    coll = parse_nexus_file(files["nexus"])
+    seqs = read_fasta(files["fasta"])
+if %(codon)r:
+    sp = CodonSitePattern(seqs, coll.taxon_names)
+    spec = PhyloModelSpecification(substitution="MG94")
+    params = {"substitution_model_rates": jnp.asarray([2.5, 0.3]),
+              "substitution_model_frequencies":
+                  jnp.asarray([0.3, 0.2, 0.3, 0.2])}
+else:
+    sp = SitePattern(seqs, coll.taxon_names)
+    spec = PhyloModelSpecification(substitution="GTR", site="gamma+4")
+    params = {"substitution_model_rates":
+                  jnp.asarray(simulate.GTR_RATES),
+              "substitution_model_frequencies":
+                  jnp.asarray(simulate.FREQUENCIES),
+              "site_model_parameters": jnp.asarray([0.5])}
+trees = coll.trees[:4]
+ref = TreeLikelihoodEngine(sp, PhyloModel(spec))
+ll1, g1 = map(np.asarray, ref.ll_and_branch_gradients(trees, params))
+for n in (4, 3):
+    eng = TreeLikelihoodEngine(sp, PhyloModel(spec))
+    eng.shard_patterns(make_mesh(n))
+    assert eng.pattern_pad %% n == 0
+    assert len({s.device for s in eng.tip_partials.addressable_shards}) == n
+    ll, g = map(np.asarray, eng.ll_and_branch_gradients(trees, params))
+    assert np.max(np.abs(ll - ll1) / np.abs(ll1)) <= 1e-12, (n, ll, ll1)
+    assert np.max(np.abs(g - g1)) <= 1e-10 * np.max(np.abs(g1)), n
+    llo = np.asarray(eng.log_likelihoods(trees, params))
+    assert np.max(np.abs(llo - ll1) / np.abs(ll1)) <= 1e-12, n
+print("SHARDED-ENGINE-OK")
 """
 
 
@@ -110,44 +159,14 @@ print("SHARDED-GRad-OK")
 """)
         assert "SHARDED-GRad-OK" in out
 
-    def test_sharded_pallas_kernel_matches_scan(self):
-        """SURVEY P2+P5 composed: the paired Pallas kernel runs per-shard
-        under shard_map when patterns are sharded (previously any sharded
-        run silently dropped to the scan tape)."""
-        out = run_payload(PRELUDE + """
-import numpy as np
-import jax, jax.numpy as jnp
-from bito_tpu.core.newick import parse_nexus_file, read_fasta
-from bito_tpu.core.site_pattern import SitePattern
-from bito_tpu.models.phylo_model import PhyloModel, PhyloModelSpecification
-from bito_tpu.treelike.engine import TreeLikelihoodEngine
-from bito_tpu.dist.mesh import make_mesh
-
-coll = parse_nexus_file("/root/reference/data/DS1.subsampled_10.t")
-seqs = read_fasta("/root/reference/data/DS1.fasta")
-sp = SitePattern(seqs, coll.taxon_names)
-spec = PhyloModelSpecification(substitution="GTR", site="gamma+4")
-params = {"substitution_model_rates": jnp.asarray([0.1,0.3,0.1,0.2,0.25,0.05]),
-          "substitution_model_frequencies": jnp.asarray([0.3,0.25,0.2,0.25]),
-          "site_model_parameters": jnp.asarray([0.5])}
-trees = coll.trees[:4]
-ref = TreeLikelihoodEngine(sp, PhyloModel(spec), dtype=jnp.float32)
-ref.kernel = "scan"
-ll_s, g_s = ref.ll_and_branch_gradients(trees, params)
-eng = TreeLikelihoodEngine(sp, PhyloModel(spec), dtype=jnp.float32)
-eng.kernel = "pallas_interpret"
-eng.shard_patterns(make_mesh(8))
-assert eng._use_pallas(True), "sharded paired kernel not selected"
-ll_p, g_p = eng.ll_and_branch_gradients(trees, params)
-rel_ll = float(jnp.max(jnp.abs((ll_p - ll_s)/ll_s)))
-rel_g = float(jnp.max(jnp.abs(g_p - g_s))/jnp.max(jnp.abs(g_s)))
-assert rel_ll < 1e-4 and rel_g < 1e-3, (rel_ll, rel_g)
-ll_only = eng.log_likelihoods(trees, params)
-rel_llo = float(jnp.max(jnp.abs((ll_only - ll_s)/ll_s)))
-assert rel_llo < 1e-4, rel_llo
-print("SHARDED-PALLAS-OK", rel_ll, rel_g, rel_llo)
-""")
-        assert "SHARDED-PALLAS-OK" in out
+    @pytest.mark.parametrize("codon", [False, True])
+    def test_shard_patterns_matches_unsharded(self, codon):
+        """A 4-state and a codon engine, sharded over 4 and over 3 virtual
+        devices, agree with the unsharded engine.  Three devices do not
+        divide the 128-multiple pattern pad, so shard_patterns pads the
+        A-state tips itself (A=64 for the codon engine)."""
+        out = run_payload(SHARDED_ENGINE % {"codon": codon}, devices=4)
+        assert "SHARDED-ENGINE-OK" in out
 
     def test_gp_engine_sharded_matches_single_device(self):
         out = run_payload(PRELUDE + """

@@ -386,3 +386,25 @@ class TestDeviceBackend:
         p_np = ds1_100.calculate_sbn_probabilities()
         np.testing.assert_allclose(score_d, score_n, rtol=1e-11)
         np.testing.assert_allclose(p_dev, p_np, atol=1e-12)
+
+
+@pytest.mark.parametrize("x64,backend,f32_ok,expected", [
+    (False, "device", False, ValueError),
+    (False, "device", True, "device"),
+    (False, "numpy", False, "numpy"),
+    (True, "device", False, "device"),
+])
+def test_sbn_backend_needs_x64_or_numpy(x64, backend, f32_ok, expected):
+    """The device SBN kernels are f64-calibrated: without x64 the device
+    backend refuses, naming both remedies, unless f32 is declared fine."""
+    import jax
+
+    from bito_tpu.api.instances import _resolve_sbn_backend
+
+    with jax.enable_x64(x64):
+        if expected is ValueError:
+            with pytest.raises(ValueError,
+                               match="jax_enable_x64.*backend='numpy'"):
+                _resolve_sbn_backend(backend, f32_ok=f32_ok)
+        else:
+            assert _resolve_sbn_backend(backend, f32_ok=f32_ok) == expected
